@@ -1,7 +1,7 @@
-"""methyldackel_tpu — a TPU-native bisulfite methylation-extraction framework.
+"""methyldackel_tpu — a JAX bisulfite methylation-extraction framework.
 
 A from-scratch re-design of the capabilities of MethylDackel
-(/root/reference, C/htslib/pthreads) for JAX/XLA/Pallas on TPU:
+(C/htslib/pthreads) for JAX/XLA on an NVIDIA GPU:
 
 - Host ingest (methyldackel_tpu.io): pure-Python + native-C++ readers for
   BGZF/BAM/BAI, faidx FASTA, BED, bigWig and the BBM mappability codec.
@@ -10,7 +10,7 @@ A from-scratch re-design of the capabilities of MethylDackel
   reference (strand inference, context classification, methylation calling,
   filtering, trimming, mate-overlap arbitration, conversion efficiency) as
   branch-free vectorized JAX ops, and the pileup as a masked scatter-add over
-  reference coordinates (XLA scatter + Pallas kernel).
+  reference coordinates (XLA integer scatter-add).
 - Engine (methyldackel_tpu.engine): genome-window scheduler, the four
   subcommands (extract / mbias / mergeContext / perRead), byte-compatible
   output formatting, SVG rendering.
@@ -32,9 +32,8 @@ def _tune_malloc():
     The window pipeline keeps several ~100 MB padded read batches alive
     at once (pipelined windows + the steal lane). With glibc's default
     M_MMAP_THRESHOLD, each batch allocation is a fresh mmap and each free
-    a munmap, so every window re-faults and kernel-zeroes ~100 MB —
-    measured 15x inflation of the batch step once ≥8 batches cycle
-    concurrently (scripts/r5_stats.py, round 5). Raising the mmap/trim
+    a munmap, so every window re-faults and kernel-zeroes ~100 MB once
+    several batches cycle concurrently. Raising the mmap/trim
     thresholds lets freed blocks recycle hot heap pages. mallopt() at
     import covers every entry point (CLI, bench, tests) without needing
     env vars at process start. MDTPU_NO_MALLOC_TUNE=1 disables."""

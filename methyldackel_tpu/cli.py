@@ -144,7 +144,7 @@ def extract_usage():
         " -B, --mappabilityBB FILE      Load mappability from a .bbm file instead\n"
         "                  of a bigWig.\n"
         " -@ INT           Worker threads (default 1). Device compute additionally\n"
-        "                  shards across all attached TPU chips under\n"
+        "                  shards across all local GPUs under\n"
         "                  MDTPU_ENGINE=mesh.\n"
         " --chunkSize INT  Genome span processed per work unit (default 1000000;\n"
         "                  must be >= 1).\n"
@@ -497,7 +497,7 @@ def _load_bbm_mappability(cfg):
 
 def usage_main():
     sys.stderr.write(
-        "methyldackel-tpu: a TPU-native tool for processing bisulfite "
+        "methyldackel-tpu: a JAX tool for processing bisulfite "
         "sequencing alignments.\n"
         f"Version: {REFERENCE_VERSION} (methyldackel_tpu {__version__})\n"
         "Usage: methyldackel-tpu <command> [options]\n\n"

@@ -3,7 +3,7 @@
 The per-thread strandMeth counters + post-join merge of the reference
 (MBias.c:57-230, 541-552) become a single [4 strands, 2 reads, 2 states,
 max_cycle] counter tensor accumulated across genome windows — the window
-accumulation is associative, so the TPU backend can psum-merge shard-local
+accumulation is associative, so a device backend can psum-merge shard-local
 counters (SURVEY §2, parallelism checklist).
 Deliberately no mate-overlap arbitration (MBias.c:160).
 """
@@ -29,8 +29,9 @@ def compute_mbias(cfg, bam, fasta, g_tid=0, g_pos=0, g_end=0):
     """Run the window loop and return the merged [4,2,2,L] uint64 counters.
 
     With -@ > 1 windows run on a thread pool; the per-window counter deltas
-    are associative uint64 adds, so the merge is order-free — the TPU-shaped
-    form of the reference's per-thread strandMeth merge (MBias.c:541-552)."""
+    are associative uint64 adds, so the merge is order-free — the
+    data-parallel form of the reference's per-thread strandMeth merge
+    (MBias.c:541-552)."""
     hdr = bam.header
     # Counters grow to the longest read cycle seen, window by window — the
     # reference's growStrandMeth (MBias.c:16-40); nothing needs a whole-file

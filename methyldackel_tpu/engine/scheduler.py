@@ -5,7 +5,7 @@ extract.c:326-350) with a deterministic window generator: windows are the
 exact (tid, start, end) triples the reference's threads would claim, in
 ticket order, including the CpG/CHG-safe boundary adjustment
 (adjustBounds, common.c:466-493). Downstream, windows are processed as
-data-parallel batches (the TPU analogue of N pthreads), and output is
+data-parallel batches (the device analogue of N pthreads), and output is
 naturally in genome order — no output tickets needed.
 """
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Replaces htslib's sam_read1/bam_mplp machinery (the reference's L1/L3 layers,
 extract.c:283-295, common.c:407) with a host-side decode into fixed-width
-numpy arrays ready to ship to the TPU:
+numpy arrays ready to ship to the device:
 
 - per-read scalars: FLAG, tid, pos, MAPQ, l_qseq, endpos, mate info, XG / NH
   auxiliary tags (getStrand, common.c:84-116, uses XG; filter_func,

@@ -1,10 +1,12 @@
-"""Loader for the optional native (C++) ingest accelerators.
+"""Loader for the native (C++) host kernels.
 
 The hot host-side cost of this framework is BGZF inflation + BAM record
-decode (the role htslib plays for the reference). csrc/ contains a small C++
-library exposing a C ABI consumed here via ctypes. Everything degrades
-gracefully to the pure-Python implementations when the library has not been
-built.
+decode (the role htslib plays for the reference), plus the host halves of
+the device programs (mate arbitration, code packing). csrc/ contains a
+small C++ library exposing a C ABI consumed here via ctypes. The library
+is built from csrc/ (`make -C csrc`) on first use whenever it is missing or
+older than a source; if the build fails, that is reported once on stderr
+and everything degrades to the pure-Python implementations.
 """
 from __future__ import annotations
 
@@ -37,12 +39,56 @@ def _lib_path() -> str:
     return os.path.join(here, "csrc", "build", "libmdtpu_native.so")
 
 
+def _build_error(path: str):
+    """Run `make -C csrc` when the library is missing or older than a
+    csrc source. An exclusive file lock serializes concurrent processes
+    (test workers, -@ pools started at once), so one of them builds and
+    the rest wait and load the result. Returns None on success (or when
+    nothing needed building), else the build's error output."""
+    import fcntl
+    import glob
+    import subprocess
+
+    csrc = os.path.dirname(os.path.dirname(path))
+    srcs = glob.glob(os.path.join(csrc, "*.cpp")) + [
+        os.path.join(csrc, "Makefile")]
+
+    def stale():
+        if not os.path.exists(path):
+            return True
+        t = os.path.getmtime(path)
+        return any(os.path.getmtime(s) > t for s in srcs)
+
+    if not stale():
+        return None
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(os.path.join(os.path.dirname(path), ".build.lock"), "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        if not stale():
+            return None
+        try:
+            r = subprocess.run(["make", "-C", csrc], capture_output=True,
+                               text=True)
+        except OSError as exc:
+            return str(exc)
+        if r.returncode != 0:
+            return (r.stderr or r.stdout)[-2000:]
+    return None
+
+
 def _load():
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
     _TRIED = True
     path = _lib_path()
+    err = _build_error(path)
+    if err is not None:
+        import sys
+
+        print(f"[methyldackel_tpu] WARNING: building the native library "
+              f"(make -C csrc) failed; using the pure-Python kernels:\n{err}",
+              file=sys.stderr)
     if not os.path.exists(path):
         return None
     try:

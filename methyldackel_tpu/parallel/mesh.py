@@ -1,19 +1,21 @@
-"""Multi-chip execution: jax.sharding Mesh over (dp, sp).
+"""Multi-device execution: jax.sharding Mesh over (dp, sp).
 
 The reference's only parallelism is pthreads over a mutex-guarded genome
 cursor with ticket-ordered output (main.c:7-15, extract.c:326-350,
-:514-535). The TPU-native replacement is a 2-D mesh:
+:514-535). The multi-device replacement is a 2-D mesh. It follows the
+algorithm, not the interconnect: every device reaches every other at the
+same rate.
 
 - dp ("data parallel"): read batches are sharded across devices; each
   device scatter-adds its shard's contributions and the partial counters
-  are merged with a psum over ICI — the psum IS the communication backend,
+  are merged with a psum — the psum IS the communication backend,
   replacing the ordered-output mutex. Mate pairs are co-sharded via the
   adjacent-mate layout (mates occupy rows 2i and 2i+1), the analogue of
   the chunk-local overlap hash (overlaps.c:12-14).
 - sp ("sequence/position parallel"): the genome-coordinate axis of the
   counter tensor is sharded, so each device owns a position slice and only
   its slice's counters are materialized — the analogue of the reference's
-  1 Mb genome chunks, but across chips instead of threads.
+  1 Mb genome chunks, but across devices instead of threads.
 
 Determinism comes from the fixed reduction structure of the sharded
 program, not from output tickets: integer counters make every schedule
@@ -27,7 +29,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from . import device as dev
 from ..ops import semantics as sem
@@ -53,7 +54,7 @@ def make_mesh(n_devices: int | None = None, sp: int | None = None):
 
 def sharded_window_pipeline(mesh: Mesh, *, wpad: int, ovw: int, min_phred: int,
                             min_conv_eff: float, use_overlaps: bool):
-    """Build the jitted multi-chip window step.
+    """Build the jitted multi-device window step.
 
     Read tensors are sharded over dp with the adjacent-mate layout (mates at
     rows 2i/2i+1, so every pair is shard-local); the reference window is
@@ -91,20 +92,20 @@ def sharded_window_pipeline(mesh: Mesh, *, wpad: int, ovw: int, min_phred: int,
         local = dev.pileup_device(seq, qual, refpos, strand, keep_read,
                                   keep_base, ref, win_offset, slice_start,
                                   wshard, min_phred)
-        # Merge the read shards' partial counters over ICI.
+        # Merge the read shards' partial counters.
         return jax.lax.psum(local, "dp")
 
     spec_reads = P("dp", None)
     spec_read1 = P("dp")
     spec_rep = P()
-    fn = shard_map(
+    fn = jax.shard_map(
         local_step,
         mesh=mesh,
         in_specs=(spec_reads, spec_reads, spec_reads, spec_read1, spec_read1,
                   spec_read1, spec_read1, spec_rep, spec_rep, spec_rep,
                   spec_rep, spec_rep),
         out_specs=P("sp", None),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -115,7 +116,7 @@ def _round_up(x, m):
 
 def make_mesh_backend(cfg, n_devices=None, sp=None):
     """Production extract compute backend over the (dp, sp) mesh —
-    the multi-chip replacement for the reference's `-@ N` pthread pool
+    the multi-device replacement for the reference's `-@ N` pthread pool
     (extract.c:1479-1484) selected with MDTPU_ENGINE=mesh.
 
     Signature-compatible with engine.extract.compute_window_counters_host.
@@ -129,7 +130,7 @@ def make_mesh_backend(cfg, n_devices=None, sp=None):
       analogue of the chunk-local overlap khash, overlaps.c:12-14);
     - per-base BED strand masks (keep_base) ride with the rows;
     - each dp shard arbitrates its pairs and scatter-adds its 4-channel
-      counters; dp partials merge with a psum over ICI, and the window
+      counters; dp partials merge with a psum, and the window
       coordinate axis is sharded over sp (each device materializes only
       its counter slice).
 
@@ -142,12 +143,11 @@ def make_mesh_backend(cfg, n_devices=None, sp=None):
                else len(jax.devices()))
     if n_avail == 1 and os.environ.get("MDTPU_MESH_FORCE") != "1":
         # A (1,1) mesh is a degenerate sharding: every psum is an identity
-        # and shard_map only adds dispatch overhead (measured 17x slower
-        # than the v3 fast path on one chip, BENCH_r04 cli_mesh before
-        # this). Delegate to the single-chip engine; the true sharded path
-        # stays selected on real multi-device meshes and is validated on
-        # the virtual CPU mesh (tests/test_mesh_engine.py, dryrun).
-        # MDTPU_MESH_FORCE=1 restores the shard_map path for measurement.
+        # and the dense sharded program only adds work over the single-
+        # device fast path. Delegate to the single-device engine; the
+        # sharded path stays selected on real multi-device meshes and is
+        # validated on the virtual CPU mesh (tests/test_mesh_engine.py,
+        # dryrun). MDTPU_MESH_FORCE=1 keeps the shard_map path.
         from .device import make_device_backend
 
         return make_device_backend(cfg)
@@ -179,13 +179,13 @@ def make_mesh_backend(cfg, n_devices=None, sp=None):
                                       wshard, min_phred)
             return jax.lax.psum(local, "dp")
 
-        fn = jax.jit(shard_map(
+        fn = jax.jit(jax.shard_map(
             local_step,
             mesh=mesh,
             in_specs=(P("dp", None), P("dp", None), P("dp", None), P("dp"),
                       P("dp"), P("dp", None), P("dp"), P(), P(), P()),
             out_specs=P("sp", None),
-            check_rep=False,
+            check_vma=False,
         ))
         cache[key] = fn
         return fn
@@ -274,7 +274,7 @@ def run_sharded_window(mesh, batch, ref, win_offset, win_start, wpad,
                        min_phred=5, min_conv_eff=0.0, use_overlaps=True,
                        bounds=None, absolute_bounds=None):
     """Pad/shard a ReadBatch-style struct (adjacent-mate layout) and execute
-    one multi-chip window step. Returns uint32 [wpad, 4]."""
+    one multi-device window step. Returns uint32 [wpad, 4]."""
     dp = mesh.shape["dp"]
     sp = mesh.shape["sp"]
     assert wpad % sp == 0, "window must divide over the sp axis"

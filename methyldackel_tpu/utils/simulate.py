@@ -28,7 +28,11 @@ def random_reference(rng, length: int, gc: float = 0.42) -> np.ndarray:
 def simulate_batch(rng, ref_codes: np.ndarray, n_pairs: int, read_len: int,
                    meth_rate: float = 0.7, indel_rate: float = 0.0,
                    tid: int = 0, mapq: int = 40) -> ReadBatch:
-    """Simulate n_pairs proper pairs of OT/OB bisulfite reads."""
+    """Simulate n_pairs proper pairs of OT/OB bisulfite reads. With
+    indel_rate > 0 each read independently carries, with that probability,
+    one of: a 1-3 bp deletion, a 1-3 bp insertion, or a 1-20 bp soft clip
+    at either end (aligned bases keep their reference positions; inserted
+    and clipped bases get refpos -1 and random base codes)."""
     glen = len(ref_codes)
     n = n_pairs * 2
     L = read_len
@@ -64,18 +68,24 @@ def simulate_batch(rng, ref_codes: np.ndarray, n_pairs: int, read_len: int,
             q = rng.integers(10, 42, size=L).astype(np.uint8)
             qual[i, :L] = q
             rp = np.arange(st, st + L)
+            if indel_rate > 0 and rng.random() < indel_rate:
+                rp_ev = _indel_refpos(rng, st, L)
+                if rp_ev.max() < glen:  # a deletion may run off the end
+                    rp = rp_ev
             refpos[i, :L] = rp
-            endpos[i] = st + L
-            base_codes = ref_codes[rp].copy()
+            endpos[i] = int(rp.max()) + 1
+            aligned = rp >= 0
+            base_codes = ref_codes[np.where(aligned, rp, st)].copy()
+            base_codes[~aligned] = rng.integers(0, 4, size=int((~aligned).sum()))
             # bisulfite chemistry: OT reads report top strand with C→T unless
             # methylated; OB reads report bottom strand (complement) with G→A
             # in top coordinates unless the bottom C (top G) is methylated.
             if ot:
-                cs = np.nonzero(base_codes == 1)[0]
+                cs = np.nonzero((base_codes == 1) & aligned)[0]
                 conv = ~cpg_meth[rp[cs]]
                 base_codes[cs[conv]] = 3
             else:
-                gs = np.nonzero(base_codes == 2)[0]
+                gs = np.nonzero((base_codes == 2) & aligned)[0]
                 conv = ~cpg_meth[rp[gs]]
                 base_codes[gs[conv]] = 0
             # sequencing errors
@@ -101,6 +111,24 @@ def simulate_batch(rng, ref_codes: np.ndarray, n_pairs: int, read_len: int,
         qual=qual,
         refpos=refpos,
     )
+
+
+def _indel_refpos(rng, start: int, L: int) -> np.ndarray:
+    """Per-base reference positions of a read starting at `start` with one
+    random event: deletion, insertion, or a soft clip at either end."""
+    kind = rng.integers(0, 4)
+    j = np.arange(L)
+    if kind == 0:  # deletion of d reference bases after read base k
+        k, d = int(rng.integers(10, L - 10)), int(rng.integers(1, 4))
+        return start + j + np.where(j >= k, d, 0)
+    if kind == 1:  # insertion of d read bases at k
+        k, d = int(rng.integers(10, L - 10)), int(rng.integers(1, 4))
+        return np.where(j < k, start + j,
+                        np.where(j < k + d, -1, start + j - d))
+    d = int(rng.integers(1, 21))
+    if kind == 2:  # leading soft clip: the alignment starts at base d
+        return np.where(j < d, -1, start + j - d)
+    return np.where(j >= L - d, -1, start + j)  # trailing soft clip
 
 
 def write_synthetic_input(dirpath, n_pairs: int, read_len: int, glen: int,

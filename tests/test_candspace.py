@@ -95,8 +95,6 @@ def test_dense_cpg_island_high_lc(monkeypatch):
     """A CpG-saturated reference (CGCGCG...) pushes every read to ~L/2
     candidate slots — the top usable Lc buckets — and must still match
     the host oracle exactly (via candspace or its fallback)."""
-    monkeypatch.setenv("MDTPU_PALLAS_INTERPRET", "1")
-    monkeypatch.delenv("MDTPU_FUSED", raising=False)
     rng = np.random.default_rng(11)
     ref_ascii, ref_codes = random_reference(rng, GLEN)
     # overwrite a stretch with CG repeats (island)
@@ -110,7 +108,7 @@ def test_dense_cpg_island_high_lc(monkeypatch):
     cfg = Config()
     cfg.chunkSize = W
     items = _window_items(batch, [0, W], ref_ascii)
-    handles = dispatch_window_group(cfg, items, pad_to=2, interpret=True)
+    handles = dispatch_window_group(cfg, items, pad_to=2)
     assert handles is not None
     _assert_group_matches_host(cfg, items, handles)
 
@@ -120,8 +118,6 @@ def test_lc_overflow_falls_back_to_window_space(monkeypatch):
     reference, a 150 bp read covers ~150 candidates > the 128-slot Lc
     cap: the candspace attempt must decline and the window-space group
     must still produce exact counters."""
-    monkeypatch.setenv("MDTPU_PALLAS_INTERPRET", "1")
-    monkeypatch.delenv("MDTPU_FUSED", raising=False)
     rng = np.random.default_rng(13)
     glen = 2 * W + 600
     isl = np.tile(np.array([ord("C"), ord("G")], np.uint8), glen // 2)
@@ -148,12 +144,11 @@ def test_lc_overflow_falls_back_to_window_space(monkeypatch):
                           "st": stp, "xla_rows": xla_rows,
                           "ref_window": ref_win, "win_start": s,
                           "woff_rel": lpos2 - s})
-    fin = dev._fused_dispatch_v3_multi_cand(cfg, wins_probe, W,
-                                            interpret=True)
+    fin = dev._fused_dispatch_v3_multi_cand(cfg, wins_probe, W)
     assert fin is None
     assert wins_probe[0]["seq"] is not None  # not cleared on decline
     # ...and the full group entry point still matches the host oracle
-    handles = dispatch_window_group(cfg, items, pad_to=2, interpret=True)
+    handles = dispatch_window_group(cfg, items, pad_to=2)
     assert handles is not None
     host = _host_per_window(cfg, items)
     for k, h in enumerate(handles):
@@ -170,8 +165,6 @@ def test_lc_overflow_falls_back_to_window_space(monkeypatch):
 def test_candspace_off_switch_matches(monkeypatch):
     """MDTPU_CANDSPACE=0 restores the window-space group; outputs at the
     emit-read positions are identical either way."""
-    monkeypatch.setenv("MDTPU_PALLAS_INTERPRET", "1")
-    monkeypatch.delenv("MDTPU_FUSED", raising=False)
     rng = np.random.default_rng(17)
     ref_ascii, ref_codes = random_reference(rng, GLEN)
     batch = _mix_batch(rng, ref_codes, n_fast=140, n_slow=20)
@@ -179,11 +172,11 @@ def test_candspace_off_switch_matches(monkeypatch):
     cfg.chunkSize = W
     items = _window_items(batch, [0, W, 2 * W], ref_ascii)
 
-    hs_on = dispatch_window_group(cfg, items, pad_to=4, interpret=True)
+    hs_on = dispatch_window_group(cfg, items, pad_to=4)
     on = [h.get() for h in hs_on]
     monkeypatch.setenv("MDTPU_CANDSPACE", "0")
     items2 = _window_items(batch, [0, W, 2 * W], ref_ascii)
-    hs_off = dispatch_window_group(cfg, items2, pad_to=4, interpret=True)
+    hs_off = dispatch_window_group(cfg, items2, pad_to=4)
     off = [h.get() for h in hs_off]
     for k in range(3):
         cand = _emit_read_positions(cfg, items2[k])

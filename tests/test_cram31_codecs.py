@@ -144,7 +144,7 @@ def test_extract_e2e_over_codecs68_cram(tmp_path):
                PYTHONPATH=os.path.dirname(os.path.dirname(
                    os.path.abspath(__file__))) + os.pathsep
                + os.environ.get("PYTHONPATH", ""),
-               MDTPU_ENGINE="host", MDTPU_FORCE_PLATFORM="cpu")
+               MDTPU_ENGINE="host")
     r = subprocess.run([sys.executable, "-m", "methyldackel_tpu.cli",
                         "extract", "-q", "0", "-p", "1", fa, path,
                         "-o", str(tmp_path / "o")],

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from util_bam import write_bam
+from methyldackel_tpu.utils.bam_writer import write_bam
 
 from methyldackel_tpu.io.bam import BamFile
 from methyldackel_tpu.io.cram import (CramFile, bam_to_cram, RAW, GZIP,

@@ -10,7 +10,7 @@ import sys
 import numpy as np
 import pytest
 
-from util_bam import write_bam
+from methyldackel_tpu.utils.bam_writer import write_bam
 from methyldackel_tpu.io.bai import BaiFile, build_bai, reg2bin
 from methyldackel_tpu.io.csi import (BAI_MAX_POS, CsiFile, build_csi,
                                      depth_for_length, reg2bin_depth)

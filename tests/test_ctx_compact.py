@@ -2,16 +2,15 @@
 the positions emit_window can read — CTX-enabled context positions (plus
 boundary guards) instead of every ref-C/G position.
 
-Safety net structure (the compiled single-window program is TPU-only, so
-CPU coverage is by parts):
+Safety net structure:
 - the numpy/jnp mask twins must agree bit-for-bit (the device gathers by
   the jnp mask, the host scatters by the numpy one);
 - the numpy mask must be a superset of the positions emit_window reads
   (its per-position reads are gated by ctx_kept = keep_vec[ctype]);
 - the grouped-slot mask must equal per-slot masks (no cross-slot bleed);
-- the group interpret path round-trips the compaction geometry end to end
-  (test_group_dispatch + the CLI e2e below);
-- the hardware matrix validates the compiled programs on the real TPU.
+- the group program, run on XLA:CPU, round-trips the compaction geometry
+  end to end (test_group_dispatch + the CLI e2e below); chip_smoke.py
+  does the same on the GPU.
 """
 import subprocess
 import sys
@@ -131,7 +130,7 @@ def test_ncand_bucket_ladder():
 
 def test_cli_context_combos_group_path(tmp_path):
     """CLI byte-identity host vs jax with CHG/CHH/mergeContext through the
-    grouped dispatch (MDTPU_BATCH_WINDOWS=3): the group interpret path
+    grouped dispatch (MDTPU_BATCH_WINDOWS=3): the group program
     round-trips the context-compacted readback geometry on CPU, so a
     wrong mask surfaces as a byte diff here."""
     from methyldackel_tpu.utils.simulate import write_synthetic_input
@@ -145,7 +144,7 @@ def test_cli_context_combos_group_path(tmp_path):
     env = dict(os.environ,
                PYTHONPATH=repo + os.pathsep
                + os.environ.get("PYTHONPATH", ""),
-               MDTPU_FORCE_PLATFORM="cpu", MDTPU_BATCH_WINDOWS="3")
+               MDTPU_BATCH_WINDOWS="3")
     variants = [
         ["--CHH", "--CHG"],
         ["--noCpG", "--CHH"],

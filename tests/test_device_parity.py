@@ -11,6 +11,8 @@ from methyldackel_tpu.ops import semantics as sem
 from methyldackel_tpu.parallel import device as dev
 from methyldackel_tpu.utils.simulate import random_reference, simulate_batch
 
+from test_fused_v3 import _assert_readback_matches
+
 
 @pytest.fixture(scope="module")
 def sim():
@@ -130,48 +132,12 @@ def test_full_window_pipeline_matches_host_backend(sim):
     # bounds configured here, so raw input is fine
     devb = make_device_backend(cfg)
     devc = devb(cfg, b2, st, keep, ref_ascii, 0, 0, 2800)
-    np.testing.assert_array_equal(host, devc)
-
-
-def test_arbitrate_prealigned_matches_host():
-    """The static-shift arbitration on phase-aligned rows equals the exact
-    host arbitration for gapless adjacent-mate batches."""
-    from methyldackel_tpu.ops.pileup_pallas import prealign_reads
-    from methyldackel_tpu.utils.simulate import simulate_batch_fast
-
-    rng = np.random.default_rng(11)
-    from methyldackel_tpu.utils.simulate import random_reference
-    ref_ascii, ref_codes = random_reference(rng, 4000)
-    batch = simulate_batch_fast(rng, ref_codes, 200, 150)
-    st = sem.strand(batch.flag, batch.xg)
-
-    # host truth
-    hq = batch.qual.copy()
-    a, b = sem.pair_mates(batch.qname, batch.flag)
-    sem.arbitrate_overlaps(batch.seq, hq, batch.refpos, st, a, b)
-
-    seq_a, qual_a, aligned, parity = prealign_reads(
-        batch.seq, batch.qual, batch.pos, st
-    )
-    L = batch.seq.shape[1]
-    max_shift = (L + 127) // 128
-    out = np.asarray(dev.arbitrate_prealigned(
-        jnp.asarray(seq_a), jnp.asarray(qual_a), jnp.asarray(aligned),
-        jnp.asarray(st.astype(np.int32)), jnp.asarray(batch.flag.astype(np.uint16)),
-        max_shift,
-    ))
-    # compare at read-base columns (un-shift)
-    pad = (batch.pos % 128).astype(np.int64)
-    rows = np.arange(batch.n)[:, None]
-    cols = pad[:, None] + np.arange(L)[None, :]
-    got = out[rows, cols]
-    np.testing.assert_array_equal(got, hq)
+    _assert_readback_matches(cfg, host, devc, ref_ascii, 0, 0)
 
 
 def test_hybrid_fast_backend_matches_host(monkeypatch):
-    """The hybrid Pallas/XLA CLI backend (gapless pairs via Pallas kernels,
-    indel pairs via the XLA path) equals the exact host computation."""
-    monkeypatch.setenv("MDTPU_PALLAS_INTERPRET", "1")
+    """The hybrid CLI backend (gapless pairs via the v3 fast path, indel
+    pairs via the dense subpath) equals the exact host computation."""
     from methyldackel_tpu.engine.extract import compute_window_counters_host
     from methyldackel_tpu.parallel.device import make_device_backend
     from methyldackel_tpu.utils.simulate import simulate_batch_fast
@@ -214,14 +180,13 @@ def test_hybrid_fast_backend_matches_host(monkeypatch):
                                         ref_ascii, 0, 0, W)
     backend = make_device_backend(cfg)
     got = backend(cfg, copy.deepcopy(batch), st, keep, ref_ascii, 0, 0, W)
-    np.testing.assert_array_equal(host, got)
+    _assert_readback_matches(cfg, host, got, ref_ascii, 0, 0)
 
 
 def test_eq_base_code_routes_exact(monkeypatch):
-    """Base code 0 ('=': match-to-reference, legal BAM) is the padding
-    sentinel of the prealigned Pallas layout; rows containing it must route
-    through the exact XLA dense subpath and still match the host engine."""
-    monkeypatch.setenv("MDTPU_PALLAS_INTERPRET", "1")
+    """Base code 0 ('=': match-to-reference, legal BAM) means "not
+    counted" on the v3 fast path; rows containing it must route through
+    the exact dense subpath and still match the host engine."""
     from methyldackel_tpu.engine.extract import compute_window_counters_host
     from methyldackel_tpu.parallel.device import make_device_backend, _rows_no_eq_base
     from methyldackel_tpu.utils.simulate import simulate_batch_fast
@@ -244,7 +209,7 @@ def test_eq_base_code_routes_exact(monkeypatch):
                                         ref_ascii, 0, 0, W)
     backend = make_device_backend(cfg)
     got = backend(cfg, copy.deepcopy(batch), st, keep, ref_ascii, 0, 0, W)
-    np.testing.assert_array_equal(host, got)
+    _assert_readback_matches(cfg, host, got, ref_ascii, 0, 0)
 
 
 def test_arbitrate_device_pad_pairs_alias_row():

@@ -11,7 +11,7 @@ import sys
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from util_bam import write_bam
+from methyldackel_tpu.utils.bam_writer import write_bam
 
 ENV = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
            + os.pathsep + os.environ.get("PYTHONPATH", ""),

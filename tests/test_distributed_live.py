@@ -36,7 +36,6 @@ def test_live_two_process_extract_byte_identical(tmp_path):
             os.environ,
             PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
             MDTPU_ENGINE="host",
-            MDTPU_FORCE_PLATFORM="cpu",
             JAX_PLATFORMS="cpu",
             **extra_env,
         )

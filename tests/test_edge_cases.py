@@ -3,7 +3,7 @@ import os
 import subprocess
 import sys
 
-from util_bam import write_bam
+from methyldackel_tpu.utils.bam_writer import write_bam
 
 ENV = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
            + os.pathsep + os.environ.get("PYTHONPATH", ""),

@@ -119,7 +119,7 @@ def test_nobam_bbm_conversion(fixture_dir):
 # ------------------------------------------------------- bgzipped FASTA
 
 def _bgzip_file(src, dst, block=4096):
-    from util_bam import _bgzf_block, _EOF
+    from methyldackel_tpu.utils.bam_writer import _bgzf_block, _EOF
 
     data = open(src, "rb").read()
     with open(dst, "wb") as fh:

@@ -1,8 +1,8 @@
 """Parity tests for the v3 pre-gated fast window (host arbitration +
-nibble-packed codes + qual-free Pallas kernel): the CPU interpret twin of
-_fused_window_pregated must equal the exact host engine computation on
-adversarial batches (indels, '=' codes, odd read lengths, window-straddling
-reads, variant channels, minPhred extremes)."""
+packed codes + the device scatter-add pileup): the jitted programs, run on
+XLA:CPU, must equal the exact host engine computation on adversarial
+batches (indels, '=' codes, odd read lengths, window-straddling reads,
+variant channels, minPhred extremes)."""
 import copy
 
 import numpy as np
@@ -43,11 +43,25 @@ def _mix_batch(rng, ref_codes, n_fast=60, n_slow=20, L_fast=100, L_slow=90):
         "mpos", "xg", "nh", "seq", "qual", "refpos")})
 
 
+def _assert_readback_matches(cfg, host, got, ref_window, win_offset,
+                             win_start):
+    """Device counters vs the host engine under the readback contract:
+    exact at every position emit_window reads (CTX-enabled contexts), in
+    channels [meth, unmeth] — and also [opposite, variant] under
+    --minOppositeDepth, the only case emit reads them."""
+    ct, _cd = sem.classify_context(np.asarray(ref_window, np.uint8))
+    idx = np.arange(host.shape[0]) + (win_start - win_offset)
+    ok = idx < len(ct)
+    keep_vec = np.array([cfg.keepCpG, cfg.keepCHG, cfg.keepCHH, 0], bool)
+    read = np.nonzero(ok)[0][keep_vec[ct[idx[ok]]]]
+    assert len(read) > 50  # the scenario must actually cover contexts
+    nch = 4 if cfg.minOppositeDepth > 0 else 2
+    np.testing.assert_array_equal(got[read, :nch], host[read, :nch])
+
+
 @pytest.mark.parametrize("min_phred,min_opp", [(5, 0), (5, 3), (0, 0), (0, 2),
                                                (40, 0)])
 def test_v3_mixed_batch_matches_host(monkeypatch, min_phred, min_opp):
-    monkeypatch.setenv("MDTPU_PALLAS_INTERPRET", "1")
-    monkeypatch.delenv("MDTPU_FUSED", raising=False)
     rng = np.random.default_rng(31)
     ref_ascii, ref_codes = random_reference(rng, 6000)
     batch = _mix_batch(rng, ref_codes)
@@ -66,15 +80,13 @@ def test_v3_mixed_batch_matches_host(monkeypatch, min_phred, min_opp):
                                         ref_ascii, 0, 0, W)
     got = make_device_backend(cfg)(cfg, copy.deepcopy(batch), st, keep,
                                    ref_ascii, 0, 0, W)
-    np.testing.assert_array_equal(host, got)
+    _assert_readback_matches(cfg, host, got, ref_ascii, 0, 0)
 
 
 def test_v3_odd_read_length_and_straddle(monkeypatch):
     """Odd L exercises the nibble-pack pad column; a nonzero window start
     exercises negative window-relative positions (reads straddling the left
     edge) and the woff_rel frame."""
-    monkeypatch.setenv("MDTPU_PALLAS_INTERPRET", "1")
-    monkeypatch.delenv("MDTPU_FUSED", raising=False)
     rng = np.random.default_rng(37)
     ref_ascii, ref_codes = random_reference(rng, 8000)
     batch = simulate_batch_fast(rng, ref_codes, 80, 101)  # odd L
@@ -91,14 +103,13 @@ def test_v3_odd_read_length_and_straddle(monkeypatch):
                                         win_end)
     got = make_device_backend(cfg)(cfg, copy.deepcopy(batch), st, keep,
                                    ref_win, win_offset, win_start, win_end)
-    np.testing.assert_array_equal(host, got)
+    _assert_readback_matches(cfg, host, got, ref_win, win_offset,
+                             win_start)
 
 
 def test_v3_trimmed_bounds_match(monkeypatch):
     """Trimming zeroes quals / sets N codes before the window compute; the
     pre-gate must reproduce the host exactly under --OT/--nOT bounds."""
-    monkeypatch.setenv("MDTPU_PALLAS_INTERPRET", "1")
-    monkeypatch.delenv("MDTPU_FUSED", raising=False)
     rng = np.random.default_rng(41)
     ref_ascii, ref_codes = random_reference(rng, 6000)
     batch = simulate_batch_fast(rng, ref_codes, 70, 120)
@@ -120,7 +131,7 @@ def test_v3_trimmed_bounds_match(monkeypatch):
                                         ref_ascii, 0, 0, W)
     got = make_device_backend(cfg)(cfg, copy.deepcopy(batch), st, keep,
                                    ref_ascii, 0, 0, W)
-    np.testing.assert_array_equal(host, got)
+    _assert_readback_matches(cfg, host, got, ref_ascii, 0, 0)
 
 
 def test_conv_eff_gate_never_runs_on_device(monkeypatch):
@@ -131,7 +142,6 @@ def test_conv_eff_gate_never_runs_on_device(monkeypatch):
     running the same pre-filtered inputs through the device backend with
     the gate off and cranked to max — counters must be identical — and by
     a jax-engine CLI run matching host byte-for-byte under the gate."""
-    monkeypatch.setenv("MDTPU_PALLAS_INTERPRET", "1")
     rng = np.random.default_rng(47)
     ref_ascii, ref_codes = random_reference(rng, 5000)
     batch = simulate_batch_fast(rng, ref_codes, 60, 100)
@@ -171,7 +181,7 @@ def test_conv_eff_jax_engine_cli_matches_host(tmp_path):
                    PYTHONPATH=os.path.dirname(os.path.dirname(
                        os.path.abspath(__file__))) + os.pathsep
                    + os.environ.get("PYTHONPATH", ""),
-                   MDTPU_ENGINE=engine, MDTPU_FORCE_PLATFORM="cpu")
+                   MDTPU_ENGINE=engine)
         r = subprocess.run(
             [sys.executable, "-m", "methyldackel_tpu.cli", "extract",
              "-o", "out", "-q", "5", "--minConversionEfficiency", "0.9",
@@ -233,13 +243,14 @@ def test_native_v3_kernels_match_numpy():
 
 
 def test_2bit_semantic_path_matches_semantics():
-    """The NCH=2 2-bit pipeline (native v3_pack2 semantic codes → phase
-    align → _pileup_tiles_nq2 math → channels_nch2 epilogue) must equal
-    ops.semantics.pileup_channels[:, :2] exactly. Mirrors the host prep of
-    _fused_dispatch_v3's 2-bit branch with the kernel interpreter."""
+    """The NCH=2 2-bit pipeline (native v3_pack2 semantic codes → the
+    2-channel scatter-add of ops.pileup → channels_nch2 epilogue) must
+    equal ops.semantics.pileup_channels[:, :2] exactly. Mirrors the host
+    prep of _fused_dispatch_v3's 2-bit branch."""
+    import jax.numpy as jnp
+
     from methyldackel_tpu.io import native
-    from methyldackel_tpu.ops import pileup_pallas as pk
-    from methyldackel_tpu.parallel.device import _round_up
+    from methyldackel_tpu.ops.pileup import channels_nch2, pileup_counts
 
     if not native.available():
         pytest.skip("native library not built")
@@ -258,77 +269,27 @@ def test_2bit_semantic_path_matches_semantics():
 
     Lq = (L + 3) // 4
     L4 = 4 * Lq
-    LP = _round_up(max(L4, 128), 128)
-    LP2 = _round_up(L4 + 127, 128)
-    T = 512
-    HALO_L = LP + 128
-    wpad = _round_up(W, T)
-    ntiles = wpad // T
-    K = (T + LP) // 128
+    Nb = 512
     pos = batch.pos.astype(np.int64)
-    aligned = pos - (pos % 128)
-    order = np.argsort(aligned, kind="stable")
-    src = order.astype(np.int64)
-    al_s = aligned[order]
-    bounds = (np.arange(ntiles)[:, None] * T - LP
-              + 128 * np.arange(K + 1)[None, :])
-    flat = np.searchsorted(al_s, bounds.reshape(-1), side="left")
-    flat = flat.reshape(ntiles, K + 1)
-    srtk = flat[:, :K].astype(np.int32).reshape(-1)
-    cntk = np.diff(flat, axis=1).astype(np.int32).reshape(-1)
-    GMAX = 64
-    while GMAX < int(cntk.max()) + 32:
-        GMAX *= 2
-    Nb = 256
-    while Nb < n + GMAX:
-        Nb *= 2
-
+    src = np.arange(n, dtype=np.int64)
     nat = native.v3_pack2(batch.seq, qual, src, pos, st, Lq, Nb, 0, minp)
     assert nat is not None
     seqpack, pos_p, parity_p = nat
-    # unpack + numpy phase-align (prealign_reads twin of the device stages)
     v = np.stack([(seqpack >> s) & 3 for s in (0, 2, 4, 6)],
                  axis=-1).reshape(Nb, L4)
-    seq_a, _q, _al, _par = pk.prealign_reads(
-        v[:n], np.zeros((n, L4), np.uint8), pos_p[:n].astype(np.int64),
-        parity_p[:n].astype(np.int32))
-    assert seq_a.shape[1] == LP2
-    seq_pad = np.zeros((Nb, LP2), np.uint8)
-    seq_pad[:n] = seq_a
-    tiles = pk._pileup_tiles_nq2_interpret(srtk, cntk, seq_pad,
-                                           ntiles=ntiles, T=T, HALO_L=HALO_L,
-                                           LP=LP, LP2=LP2, K=K)
-    counts = tiles.transpose(1, 0, 2).reshape(8, wpad)
-    rbw = np.zeros(wpad, np.uint8)
-    rbw[: len(ref_ascii)] = ref_ascii[:wpad]
+    counts = pileup_counts(jnp.asarray(v), jnp.asarray(pos_p),
+                           jnp.asarray(parity_p), W, 2)
+    rbw = np.zeros(W, np.uint8)
+    rbw[: len(ref_ascii)] = ref_ascii[:W]
     isc = np.packbits(rbw == ord("C"))
     isg = np.packbits(rbw == ord("G"))
-    got = np.asarray(pk.channels_nch2(counts, isc, isg, wpad))
+    got = np.asarray(channels_nch2(counts, jnp.asarray(isc),
+                                   jnp.asarray(isg), W))
 
     host = sem.pileup_channels(batch.seq, qual, batch.refpos, st,
                                np.ones(batch.seq.shape, bool), ref_ascii,
-                               0, 0, wpad, minp)
+                               0, 0, W, minp)
     np.testing.assert_array_equal(got.T, host[:, :2])
-
-
-def test_v2_escape_hatch_still_exact(monkeypatch):
-    """MDTPU_FUSED=v2 (the pre-v3 device-arbitration program) remains a
-    working escape hatch: interpret-mode parity vs the host engine."""
-    monkeypatch.setenv("MDTPU_PALLAS_INTERPRET", "1")
-    monkeypatch.setenv("MDTPU_FUSED", "v2")
-    rng = np.random.default_rng(61)
-    ref_ascii, ref_codes = random_reference(rng, 5000)
-    batch = simulate_batch_fast(rng, ref_codes, 60, 100)
-    st = sem.strand(batch.flag, batch.xg)
-    keep = np.ones(batch.n, bool)
-    W = 4608
-    cfg = Config()
-    cfg.chunkSize = W
-    host = compute_window_counters_host(cfg, copy.deepcopy(batch), st, keep,
-                                        ref_ascii, 0, 0, W)
-    got = make_device_backend(cfg)(cfg, copy.deepcopy(batch), st, keep,
-                                   ref_ascii, 0, 0, W)
-    np.testing.assert_array_equal(host, got)
 
 
 def test_native_arbitrate2_matches_oracle():
@@ -394,3 +355,34 @@ def test_nb_bucket_ladder():
         assert b >= prev or True
     # high-water semantics: floor never shrinks the bucket
     assert _nb_bucket(500, floor=1024) == 1024
+
+
+def test_stacked_starts_beyond_old_group_cap():
+    """RRBS-like coverage: 10000 reads stacked on three MspI-fragment start
+    positions — far beyond the 4096 reads per 128-base start block that
+    the old tile kernel could take before bailing out — stay on the device
+    fast path and match the host engine."""
+    from methyldackel_tpu.parallel import device as dev
+
+    rng = np.random.default_rng(67)
+    ref_ascii, ref_codes = random_reference(rng, 6000)
+    batch = simulate_batch_fast(rng, ref_codes, 5000, 100)
+    L = batch.seq.shape[1]
+    starts = np.array([500, 501, 2000], np.int64)
+    pair_start = starts[rng.integers(0, len(starts), batch.n // 2)]
+    batch.pos = np.repeat(pair_start, 2)
+    batch.mpos = batch.pos.copy()
+    batch.refpos = batch.pos[:, None] + np.arange(L)[None, :]
+    batch.endpos = batch.pos + L
+    st = sem.strand(batch.flag, batch.xg)
+    keep = np.ones(batch.n, bool)
+    cfg = Config()
+    W = 5632
+    cfg.chunkSize = W
+    assert np.bincount(batch.pos // 128).max() > 4096
+    host = compute_window_counters_host(cfg, copy.deepcopy(batch), st, keep,
+                                        ref_ascii, 0, 0, W)
+    h = dev.dispatch_window_counters_fast(cfg, copy.deepcopy(batch), st,
+                                          keep, ref_ascii, 0, 0, W)
+    assert h is not None  # no fallback off the fast path
+    _assert_readback_matches(cfg, host, h.get(), ref_ascii, 0, 0)

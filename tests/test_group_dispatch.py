@@ -68,8 +68,6 @@ def _emit_read_positions(cfg, item):
 
 
 def test_group_matches_host_oracle(monkeypatch):
-    monkeypatch.setenv("MDTPU_PALLAS_INTERPRET", "1")
-    monkeypatch.delenv("MDTPU_FUSED", raising=False)
     rng = np.random.default_rng(41)
     ref_ascii, ref_codes = random_reference(rng, GLEN)
     batch = _mix_batch(rng, ref_codes, n_fast=160, n_slow=30)
@@ -78,7 +76,7 @@ def test_group_matches_host_oracle(monkeypatch):
     cfg.chunkSize = W
 
     items = _window_items(batch, [0, W, 2 * W], ref_ascii)
-    handles = dispatch_window_group(cfg, items, pad_to=4, interpret=True)
+    handles = dispatch_window_group(cfg, items, pad_to=4)
     assert handles is not None and len(handles) == 3
     host = _host_per_window(cfg, items)
     for k, h in enumerate(handles):
@@ -101,8 +99,6 @@ def test_group_matches_host_oracle(monkeypatch):
 
 
 def test_group_empty_and_single_windows(monkeypatch):
-    monkeypatch.setenv("MDTPU_PALLAS_INTERPRET", "1")
-    monkeypatch.delenv("MDTPU_FUSED", raising=False)
     rng = np.random.default_rng(43)
     ref_ascii, ref_codes = random_reference(rng, GLEN)
     batch = _mix_batch(rng, ref_codes, n_fast=60, n_slow=0)
@@ -117,7 +113,7 @@ def test_group_empty_and_single_windows(monkeypatch):
     cfg.chunkSize = W
     items = _window_items(batch, [0, W, 2 * W], ref_ascii)
     assert items[1][0].n == 0 and items[2][0].n == 0
-    handles = dispatch_window_group(cfg, items, pad_to=4, interpret=True)
+    handles = dispatch_window_group(cfg, items, pad_to=4)
     assert handles is not None
     host = _host_per_window(cfg, items)
     for k, h in enumerate(handles):
@@ -127,7 +123,6 @@ def test_group_empty_and_single_windows(monkeypatch):
 
 
 def test_group_preconditions_fall_back(monkeypatch):
-    monkeypatch.setenv("MDTPU_PALLAS_INTERPRET", "1")
     rng = np.random.default_rng(47)
     ref_ascii, ref_codes = random_reference(rng, GLEN)
     batch = _mix_batch(rng, ref_codes, n_fast=20, n_slow=0)
@@ -135,8 +130,8 @@ def test_group_preconditions_fall_back(monkeypatch):
     cfg.chunkSize = W
     items = _window_items(batch, [0, W], ref_ascii)
     cfg.minOppositeDepth = 3  # NCH=4: group path must decline
-    assert dispatch_window_group(cfg, items, interpret=True) is None
+    assert dispatch_window_group(cfg, items) is None
     cfg.minOppositeDepth = 0
     rs = np.zeros(W, np.int8)
     items_rs = [it[:7] + (rs,) for it in items]
-    assert dispatch_window_group(cfg, items_rs, interpret=True) is None
+    assert dispatch_window_group(cfg, items_rs) is None

@@ -299,7 +299,7 @@ def test_truncated_bam_raises_cleanly(tmp_path):
     truncated records (htslib's corresponding failure is a hard error)."""
     import pytest
     from methyldackel_tpu.io.bam import BamFile
-    from util_bam import write_bam
+    from methyldackel_tpu.utils.bam_writer import write_bam
 
     recs = [dict(qname=f"r{i}", flag=0, tid=0, pos=i * 5,
                  seq="ACGTACGTAC", cigar="10M", mtid=-1, mpos=-1)
@@ -323,7 +323,7 @@ def test_corrupt_bgzf_crc_raises(tmp_path):
     import pytest
     import zlib
     from methyldackel_tpu.io.bam import BamFile
-    from util_bam import write_bam
+    from methyldackel_tpu.utils.bam_writer import write_bam
 
     recs = [dict(qname=f"r{i}", flag=0, tid=0, pos=i * 3,
                  seq="ACGTACGTAC", cigar="10M", mtid=-1, mpos=-1)

@@ -12,7 +12,7 @@ import os
 
 import numpy as np
 
-from util_bam import write_bam
+from methyldackel_tpu.utils.bam_writer import write_bam
 from methyldackel_tpu.io.bam import BamFile
 
 ENV = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(

@@ -71,7 +71,6 @@ def test_mbias_cli_device_byte_identical(fixture_dir):
         os.environ,
         PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
         JAX_PLATFORMS="cpu",
-        MDTPU_FORCE_PLATFORM="cpu",
         XLA_FLAGS="--xla_force_host_platform_device_count=8",
     )
     outs = {}

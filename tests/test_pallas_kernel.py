@@ -1,11 +1,45 @@
-"""Pallas pileup kernel logic vs exact host semantics (interpret mode —
-the kernel's math executed in numpy; the compiled TPU kernel runs the same
-program and is additionally exercised by bench.py on hardware)."""
+"""The plain device pileup (ops.pileup: integer scatter-add over
+(parity, channel, start + column) and the reference-dependent epilogues)
+vs exact host semantics, run as jitted programs on XLA:CPU."""
 import numpy as np
+import pytest
+import jax.numpy as jnp
 
 from methyldackel_tpu.ops import semantics as sem
-from methyldackel_tpu.ops.pileup_pallas import pileup_pallas, counts_to_channels
+from methyldackel_tpu.ops.pileup import (channels_nch2, counts_to_channels,
+                                         pileup_base_counts, pileup_counts)
 from methyldackel_tpu.utils.simulate import random_reference, simulate_batch_fast
+
+
+def _pileup4(seq, qual, pos_rel, strand, ref_window, win_offset_rel, W,
+             min_phred):
+    """The 4-channel fast-path pileup for gapless reads: phred pre-gate on
+    the host, then the device scatter-add + epilogue. uint32 [W, 4]."""
+    gated = np.where(qual >= min_phred, seq, 0).astype(np.uint8)
+    counts = pileup_base_counts(jnp.asarray(gated),
+                                jnp.asarray(np.asarray(pos_rel, np.int32)),
+                                jnp.asarray((strand & 1).astype(np.uint8)), W)
+    return np.asarray(counts_to_channels(counts, ref_window, win_offset_rel,
+                                         W)).T
+
+
+def _pileup2(seq, qual, pos_rel, strand, ref_window, W, min_phred):
+    """The 2-bit semantic pileup (default extract): codes 1/2 for the
+    strand's methylated/unmethylated base, host-packed C/G bitmaps of a
+    reference that starts at window coordinate 0. uint32 [W, 2]."""
+    odd = (strand & 1).astype(bool)[:, None]
+    gated = np.where(qual >= min_phred, seq, 0)
+    meth = np.where(odd, gated == 2, gated == 4)     # C on odd, G on even
+    unmeth = np.where(odd, gated == 8, gated == 1)   # T on odd, A on even
+    codes = np.where(meth, 1, np.where(unmeth, 2, 0)).astype(np.uint8)
+    rbw = np.asarray(ref_window)[:W]
+    isc = np.packbits(rbw == ord("C"))
+    isg = np.packbits(rbw == ord("G"))
+    counts = pileup_counts(jnp.asarray(codes),
+                           jnp.asarray(np.asarray(pos_rel, np.int32)),
+                           jnp.asarray((strand & 1).astype(np.uint8)), W, 2)
+    return np.asarray(channels_nch2(counts, jnp.asarray(isc),
+                                    jnp.asarray(isg), W)).T
 
 
 def test_pileup_pallas_interpret_matches_host():
@@ -13,14 +47,11 @@ def test_pileup_pallas_interpret_matches_host():
     W = 2048
     ref_ascii, ref_codes = random_reference(rng, W)
     batch = simulate_batch_fast(rng, ref_codes, 150, 100)
-    order = np.argsort(batch.pos, kind="stable")
     st = sem.strand(batch.flag, batch.xg)
     host = sem.pileup_channels(batch.seq, batch.qual, batch.refpos, st,
                                np.ones(batch.seq.shape, bool), ref_ascii,
                                0, 0, W, 5)
-    out = pileup_pallas(batch.seq[order], batch.qual[order],
-                        batch.pos[order].astype(np.int64), st[order],
-                        ref_ascii, 0, W, min_phred=5, interpret=True)
+    out = _pileup4(batch.seq, batch.qual, batch.pos, st, ref_ascii, 0, W, 5)
     np.testing.assert_array_equal(host, out)
 
 
@@ -34,7 +65,6 @@ def test_pileup_pallas_window_offsets():
     W = win_end - win_start
     keep = (batch.pos < win_end) & (batch.endpos > win_start)
     idx = np.nonzero(keep)[0]
-    idx = idx[np.argsort(batch.pos[idx], kind="stable")]
     st = sem.strand(batch.flag, batch.xg)
     win_offset = win_start - 2
     ref_window = ref_ascii[win_offset:]
@@ -42,29 +72,49 @@ def test_pileup_pallas_window_offsets():
                                batch.refpos[idx], st[idx],
                                np.ones(batch.seq[idx].shape, bool),
                                ref_window, win_offset, win_start, win_end, 5)
-    out = pileup_pallas(batch.seq[idx], batch.qual[idx],
-                        (batch.pos[idx] - win_start).astype(np.int64),
-                        st[idx], ref_window, win_offset - win_start, W,
-                        min_phred=5, interpret=True)
+    out = _pileup4(batch.seq[idx], batch.qual[idx],
+                   batch.pos[idx] - win_start, st[idx], ref_window,
+                   win_offset - win_start, W, 5)
     np.testing.assert_array_equal(host, out)
+
+
+@pytest.mark.parametrize("nch", [2, 4])
+def test_plain_pileup_megabase_window(nch):
+    """150 bp reads over a 1 Mb window (the production window width):
+    the scatter-add pileup equals sem.pileup_channels exactly, for the
+    2-channel default program and the 4-channel --minOppositeDepth one."""
+    rng = np.random.default_rng(100 + nch)
+    W = 1 << 20
+    ref_ascii, ref_codes = random_reference(rng, W + 64)
+    batch = simulate_batch_fast(rng, ref_codes, 6000, 150)
+    st = sem.strand(batch.flag, batch.xg)
+    host = sem.pileup_channels(batch.seq, batch.qual, batch.refpos, st,
+                               np.ones(batch.seq.shape, bool), ref_ascii,
+                               0, 0, W, 5)
+    if nch == 4:
+        out = _pileup4(batch.seq, batch.qual, batch.pos, st, ref_ascii, 0,
+                       W, 5)
+        np.testing.assert_array_equal(host, out)
+    else:
+        out = _pileup2(batch.seq, batch.qual, batch.pos, st, ref_ascii, W, 5)
+        np.testing.assert_array_equal(host[:, :2], out)
 
 
 def test_counts_to_channels_formulas():
     rng = np.random.default_rng(1)
     W = 256
     # Generate consistent counts: per-parity base counts are a composition
-    # of the parity total (matching what the kernel can actually produce).
-    counts = np.zeros((W, 16), np.int32)
-    for block in (0, 6):
-        per_base = rng.integers(0, 4, size=(W, 5)).astype(np.int32)
-        counts[:, block + 1 : block + 6] = per_base
-        counts[:, block] = per_base.sum(axis=1) + rng.integers(0, 3, size=W)
+    # of the parity total (matching what the pileup can actually produce).
+    counts = np.zeros((2, 6, W), np.int32)
+    for par in (0, 1):
+        per_base = rng.integers(0, 4, size=(5, W)).astype(np.int32)
+        counts[par, 1:6] = per_base
+        counts[par, 0] = per_base.sum(axis=0) + rng.integers(0, 3, size=W)
     ref = rng.choice([ord(c) for c in "ACGTN"], size=W).astype(np.uint8)
-    # the epilogue consumes the kernel's sublane-major [16, W] layout
-    out = np.asarray(counts_to_channels(counts.T, ref, 0, W)).T
+    out = np.asarray(counts_to_channels(counts, ref, 0, W)).T
     for p in range(W):
-        odd = counts[p, 0:6]
-        even = counts[p, 6:12]
+        odd = counts[0, :, p]
+        even = counts[1, :, p]
         if ref[p] == ord("C"):
             assert out[p, 0] == odd[2] and out[p, 1] == odd[4]
             assert out[p, 2] == even[0]
@@ -78,61 +128,11 @@ def test_counts_to_channels_formulas():
             assert out[p, 2] == odd[0] + even[0]
 
 
-def test_arbitrate_pallas_prep_matches_host():
-    """prepare_pairs + the arbitration kernel math (validated through the
-    jitted CPU interpreter path of the same jnp code) vs host semantics."""
-    import jax.numpy as jnp
-    from methyldackel_tpu.ops.pileup_pallas import prealign_reads
-    from methyldackel_tpu.ops import arbitrate_pallas as ak
-
-    rng = np.random.default_rng(21)
-    ref_ascii, ref_codes = random_reference(rng, 4000)
-    batch = simulate_batch_fast(rng, ref_codes, 128, 150)
-    st = sem.strand(batch.flag, batch.xg)
-
-    hq = batch.qual.copy()
-    a, b = sem.pair_mates(batch.qname, batch.flag)
-    sem.arbitrate_overlaps(batch.seq, hq, batch.refpos, st, a, b)
-
-    seq_a, qual_a, aligned, parity = prealign_reads(batch.seq, batch.qual,
-                                                    batch.pos, st)
-    sa, qa, sb, qb, P = ak.prepare_pairs(seq_a, qual_a, aligned, st,
-                                         batch.flag, max_shift=2)
-    # run the kernel body as plain jnp (bit-identical math, CPU)
-    out = {}
-
-    class FakeRef:
-        def __init__(self, v=None):
-            self.v = jnp.asarray(v) if v is not None else None
-
-        def __getitem__(self, k):
-            return self.v
-
-        def __setitem__(self, k, val):
-            self.v = val
-
-    oa, ob = FakeRef(), FakeRef()
-    ak._arb_kernel(FakeRef(sa), FakeRef(qa), FakeRef(sb), FakeRef(qb), oa, ob,
-                   LP2=seq_a.shape[1], max_shift=2)
-    new_q = np.empty_like(qual_a)
-    new_q[0::2] = np.asarray(oa.v)
-    new_q[1::2] = np.asarray(ob.v)
-    # compare at read-base columns
-    L = batch.seq.shape[1]
-    pad = (batch.pos % 128).astype(np.int64)
-    rows = np.arange(batch.n)[:, None]
-    cols = pad[:, None] + np.arange(L)[None, :]
-    np.testing.assert_array_equal(new_q[rows, cols], hq)
-
-
 def test_arbitrate_pad_does_not_zero_N():
     """An N base (qual > 0) in the non-overlapping tail of one mate must
     keep its qual: the C only rewrites SHARED positions (overlaps.c walks
-    the common span); before the `has` mask, the pad byte (base 0) facing
-    it hit the zero_d rule."""
-    import jax.numpy as jnp
-    from methyldackel_tpu.ops.pileup_pallas import prealign_reads
-    from methyldackel_tpu.ops import arbitrate_pallas as ak
+    the common span)."""
+    from methyldackel_tpu.parallel.device import arbitrate_device
 
     L = 12
     N = 2
@@ -149,41 +149,15 @@ def test_arbitrate_pad_does_not_zero_N():
     qual[1, :8] = 25
     refpos[1, :8] = np.arange(8)
     st = np.array([1, 1], np.int64)
-    flag = np.array([0x63, 0x93], np.uint16)
-    pos = np.array([0, 0], np.int64)
 
     hq = qual.copy()
     sem.arbitrate_overlaps(seq, hq, refpos, st, np.array([0]), np.array([1]))
     assert hq[0, 10] == 30  # host oracle: untouched
 
-    seq_a, qual_a, aligned, parity = prealign_reads(seq, qual, pos, st)
-    sa, qa, sb, qb, P = ak.prepare_pairs(seq_a, qual_a, aligned, st, flag,
-                                         max_shift=2)
-
-    class FakeRef:
-        def __init__(self, v=None):
-            self.v = jnp.asarray(v) if v is not None else None
-
-        def __getitem__(self, k):
-            return self.v
-
-        def __setitem__(self, k, val):
-            self.v = val
-
-    oa, ob = FakeRef(), FakeRef()
-    ak._arb_kernel(FakeRef(sa), FakeRef(qa), FakeRef(sb), FakeRef(qb), oa, ob,
-                   LP2=seq_a.shape[1], max_shift=2)
-    new_q = np.empty_like(qual_a)
-    new_q[0::2] = np.asarray(oa.v)
-    new_q[1::2] = np.asarray(ob.v)
-    cols = np.arange(L)[None, :]
-    np.testing.assert_array_equal(
-        new_q[np.arange(2)[:, None], cols], hq,
-    )
-
-    # XLA prealigned variant (adjacent-mate layout) must agree too
-    from methyldackel_tpu.parallel.device import arbitrate_prealigned
-    out = np.asarray(arbitrate_prealigned(
-        jnp.asarray(seq_a), jnp.asarray(qual_a), jnp.asarray(aligned),
-        jnp.asarray(st), jnp.asarray(flag), 2))
-    np.testing.assert_array_equal(out[np.arange(2)[:, None], cols], hq)
+    out = np.asarray(arbitrate_device(
+        jnp.asarray(seq), jnp.asarray(qual),
+        jnp.asarray(refpos.astype(np.int32)),
+        jnp.asarray(st.astype(np.int32)), jnp.asarray(np.array([0], np.int32)),
+        jnp.asarray(np.array([1], np.int32)), jnp.asarray(np.array([True])),
+        128))
+    np.testing.assert_array_equal(out, hq)

@@ -9,12 +9,12 @@ import sys
 
 import numpy as np
 
-from util_bam import write_bam
+from methyldackel_tpu.utils.bam_writer import write_bam
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = dict(os.environ, PYTHONPATH=REPO + os.pathsep
            + os.environ.get("PYTHONPATH", ""),
-           MDTPU_ENGINE="host", MDTPU_FORCE_PLATFORM="cpu")
+           MDTPU_ENGINE="host")
 
 
 def md(args, cwd):

@@ -5,7 +5,7 @@ import os
 import subprocess
 import sys
 
-from util_bam import write_bam
+from methyldackel_tpu.utils.bam_writer import write_bam
 
 ENV = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
            + os.pathsep + os.environ.get("PYTHONPATH", ""),
@@ -245,7 +245,7 @@ def test_device_engine_thread_invariance(tmp_path):
         ("t1g3", {"MDTPU_GETTERS": "3", "MDTPU_PIPELINE": "2"}, []),
         ("t4", {}, ["-@", "4"]),
     ):
-        env = dict(ENV, MDTPU_ENGINE="jax", MDTPU_FORCE_PLATFORM="cpu",
+        env = dict(ENV, MDTPU_ENGINE="jax",
                    **extra_env)
         r = subprocess.run([_sys.executable, "-m", "methyldackel_tpu.cli",
                             "extract", "--chunkSize", "96", *args,
@@ -290,7 +290,7 @@ def test_hybrid_steal_and_group_invariance(tmp_path):
         ("g2", {"MDTPU_STEAL": "1", "MDTPU_BATCH_WINDOWS": "2",
                 "MDTPU_GETTERS": "1"}, ["-@", "2"]),
     ):
-        env = dict(ENV, MDTPU_ENGINE="jax", MDTPU_FORCE_PLATFORM="cpu",
+        env = dict(ENV, MDTPU_ENGINE="jax",
                    **extra_env)
         r = subprocess.run([_sys.executable, "-m", "methyldackel_tpu.cli",
                             "extract", "--chunkSize", "96", *args,
